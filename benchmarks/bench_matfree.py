@@ -2,9 +2,9 @@
 """Matrix-free engine benchmark: one huge dense-Jacobian-impossible NLS fit.
 
 The dense solver stores J (m, n); at m = 2**21 residuals x n = 4096
-parameters that is 32 GB in f32 — beyond a v5e chip's HBM.  The matrix-free
+parameters that is 32 GB in f32.  The matrix-free
 engine solves it with only m- and n-vectors live; each CG iteration is a
-jvp+vjp pair (two MXU matmuls for this separable model).
+jvp+vjp pair (two matmuls for this separable model).
 
 Usage: python benchmarks/bench_matfree.py [--m 2097152] [--n 4096] [--cpu]
 """

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """bf16 mixed-precision accuracy envelope over the MGH battery.
 
-The TPU-native bfloat16 mode is *mixed precision*: f32 solver state with bf16
-MXU multiply passes in the non-critical matmuls (`matmul_precision` knob on
+The reduced-precision mode is *mixed precision*: f32 solver state with bf16
+multiply passes in the non-critical matmuls (`matmul_precision` knob on
 ``CaNNOLeSSolver``; the J'J condensation and quality-gate/refinement
 contractions stay pinned at precision='highest').  This script measures what
 that costs in accuracy, reference-style (multiprecision sweep analog,
@@ -13,7 +13,7 @@ that costs in accuracy, reference-style (multiprecision sweep analog,
 * report solved counts and the max/median deviation of the returned solution
   and objective from the f64 answer — the envelope.
 
-Run on TPU (precision knobs are no-ops on CPU):
+Run on a GPU (precision knobs are no-ops on CPU):
 
     python benchmarks/bf16_envelope.py [--json out.json]
 """
@@ -50,7 +50,7 @@ def main():
     for spec in mgh_suite():
         pb = spec.make()
         row = {"name": spec.name}
-        # f64 ground truth on the host CPU (TPUs have no native f64)
+        # f64 ground truth on the host CPU
         try:
             with jax.enable_x64(True), jax.default_device(cpu):
                 s64 = CaNNOLeSSolver(pb, method="newton", dtype=jnp.float64).solve(

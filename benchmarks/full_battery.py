@@ -29,7 +29,7 @@ rescues then apply to every problem (no per-problem flags):
   rank-deficient-Jacobian constrained problems);
 * unsolved, or first_order at an objective measurably above the known
   optimum (a local minimum — the reference would simply return it) →
-  one batched multistart sweep (the TPU-native rescue: 64 perturbed
+  one batched multistart sweep (the batched rescue: 64 perturbed
   starts in one compiled vsolve).
 
 The JSON summary records the uniform-config solve count
@@ -125,7 +125,7 @@ def main():
             # see perf_profile — and that rescues f32 multiplier blow-ups on
             # rank-deficient-Jacobian constrained problems like
             # brown_almost_linear+linear.  matmul_precision='highest'
-            # matters on TPU, where default-f32 matmuls run bf16 multiplies:
+            # matters on a GPU, where default-f32 matmuls run in TF32:
             # a rescue pass buys robustness, not speed; no-op on CPU).
             if not _ok(stats):
                 st2b = CaNNOLeSSolver(

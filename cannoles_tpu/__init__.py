@@ -1,4 +1,4 @@
-"""cannoles_tpu — TPU-native constrained nonlinear least squares.
+"""cannoles_tpu — constrained nonlinear least squares in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of CaNNOLeS.jl
 (the Orban–Siqueira regularization method for  min ½‖F(x)‖²  s.t.  c(x)=0),
@@ -14,7 +14,7 @@ Quick start::
     stats = cannoles(nls)
     print(stats.status, stats.solution)
 
-Batched (the TPU regime)::
+Batched (the accelerator regime)::
 
     from cannoles_tpu import vsolve
     results = vsolve(nls, x0_batch)          # vmapped full solver

@@ -6,7 +6,7 @@ item; capability analog of the reference's sparse-J handling,
 and P landmarks on a (C, P) visibility grid — full or partially observed via
 a ``data["vis"]`` mask (BAL-style sparse scenes; the mask scales the
 per-observation Jacobian blocks, so the algebra sees the true sparse
-Jacobian while every contraction stays a dense MXU einsum) — the condensed
+Jacobian while every contraction stays a dense einsum) — the condensed
 Gauss-Newton system
 
     (rho I + JᵀJ + JcᵀJc/δ) z = b,    x = [cams (C,6); pts (P,3)]
@@ -19,13 +19,13 @@ has the classic arrowhead structure
                                      Dc: gauge-constraint term (cameras only)
 
 Eliminating the landmarks analytically — V is block-diagonal, its inverse is
-P independent closed-form 3x3 adjugates (pure VPU work) — leaves the reduced
+P independent closed-form 3x3 adjugates (elementwise work) — leaves the reduced
 camera system  S = U + Dc − Σₚ W·ₚ Vₚ⁻¹ W·ₚᵀ  of size (6C, 6C): a few
-thousand at most, factorized directly (owned Pallas blocked Cholesky above
-the size threshold).  Back-substitution recovers zp.  The O(C²P) Schur
-product and the per-observation Jacobians are plain batched einsums — the
-MXU does all the heavy lifting; **no (m, n) Jacobian is ever materialized**
-(m = 2CP rows, 245 GB dense at the 100c/10k-pt benchmark scene).
+thousand at most, factorized directly with XLA's Cholesky.  Back-substitution
+recovers zp.  The O(C²P) Schur product and the per-observation Jacobians are
+plain batched einsums — dense matmuls do all the heavy lifting; **no (m, n)
+Jacobian is ever materialized** (m = 2CP rows, 245 GB dense at the
+100c/10k-pt benchmark scene).
 
 "Factorization success" = positive-definiteness of every landmark block
 (Sylvester minors) AND of the reduced camera system (Cholesky pivots) — the
@@ -259,7 +259,7 @@ class SchurBASolver(MatrixFreeSolver):
             return A, B
 
         A, B = jax.vmap(lambda c: jax.vmap(lambda p: jac_one(c, p))(pts))(cams)
-        # A: (C, P, 2, 6); B: (C, P, 2, 3) — all contractions below are MXU
+        # A: (C, P, 2, 6); B: (C, P, 2, 3) — all contractions below are dense
         # partial visibility (models/ba_large.py visibility=): the residual
         # is vis ⊙ (proj − obs), so each observation's Jacobian rows carry
         # the same mask — scale A/B and every U/V/W block is exact for the
@@ -401,8 +401,6 @@ class SchurBASolver(MatrixFreeSolver):
 
         rc = (bc - jnp.einsum("cpij,pj->ci", X, bp)).reshape(6 * C)
 
-        # XLA's cholesky is the measured winner at reduced-system sizes
-        # (RESULTS.md owned-kernel study); ops/pallas_chol.py remains the seam
         from jax.scipy.linalg import cho_solve
 
         # Jacobi-scaled camera system (Ceres-style): unit diagonal before

@@ -28,7 +28,7 @@ solver and the reference main loop (CaNNOLeS.jl:612-857).
 
 Memory per iteration: a handful of n- and m-vectors.  Each CG iteration is
 one jvp + one vjp through the residual (and constraints), i.e. ~4 residual
-evaluations of FLOPs — all MXU-friendly batched work when the residual is
+evaluations of FLOPs — all dense batched work when the residual is
 itself batched (curve fits, reprojection errors, ...).
 
 Scale-out: shard the per-residual `data` leaves over a mesh ('rows' axis);
@@ -175,7 +175,7 @@ class MatrixFreeSolver:
                  attempt → rho bump (default eps^0.45, ~3e-8 in f64).
     precond    : 'none' (default) | 'jacobi' | callable.  The reference
                  needs no preconditioner — its sparse LDLᵀ is a direct solve
-                 (solver_types.jl) — but its TPU analog's CG budget is the
+                 (solver_types.jl) — but this engine's CG budget is the
                  entire per-step cost of the large regime, so a
                  preconditioner seam is first-class here:
 

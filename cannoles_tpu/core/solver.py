@@ -1,5 +1,5 @@
 """Constrained nonlinear least-squares solver — the Orban–Siqueira
-regularization method as a jittable TPU-native state machine.
+regularization method as a jittable state machine for XLA devices.
 
 This is a ground-up JAX restatement of the reference algorithm
 (``/root/reference/src/CaNNOLeS.jl:418-864`` main loop, ``:1008-1052``
@@ -11,7 +11,7 @@ for the XLA compilation model rather than translated:
   through ``lax.while_loop`` — "≤96 bytes allocated per solve" becomes
   "trace once, zero recompilation, zero host syncs in the hot path";
 * the sparse COO KKT matrix (reference ``:281-315``) becomes a dense blocked
-  KKT assembled from AD-computed blocks (MXU-friendly);
+  KKT assembled from AD-computed blocks (dense matmul-friendly);
 * MA57/LDLFactorizations + inertia (reference ``solver_types.jl``) become the
   blocked LDLᵀ / eigh backends of :mod:`cannoles_tpu.ops.ldlt`;
 * per-instance control flow (rho bumps, backtracking counts, inner-loop
@@ -20,7 +20,8 @@ for the XLA compilation model rather than translated:
 
 Hot path: one inner iteration = 1 KKT assembly + (1+bumps) factorizations +
 1-2 residual/constraint evaluations + 2 Jacobians.  Everything is dense and
-static-shaped so XLA tiles the O(N³) factorization and O(mn²) AD onto the MXU.
+static-shaped so XLA maps the O(N³) factorization and O(mn²) AD onto dense
+device kernels.
 """
 
 from __future__ import annotations
@@ -83,20 +84,6 @@ def _check_available_method(method: str) -> str:
     return method
 
 
-# KKT size up to which the lanes-batched Pallas LDLᵀ kernel is the
-# measured-best vmapped backend (ops/pallas_ldlt.py dispatch cap).  The
-# auto policy respects the compile-budget gate: N = 97..160 needs the
-# explicit CANNOLES_PALLAS_LARGE_N opt-in (Mosaic compile is minutes there).
-def _pallas_batch_cap() -> int:
-    from ..ops.pallas_ldlt import (
-        PALLAS_EAGER_MAX_N,
-        PALLAS_MAX_N,
-        pallas_large_n_opt_in,
-    )
-
-    return PALLAS_MAX_N if pallas_large_n_opt_in() else PALLAS_EAGER_MAX_N
-
-
 def resolve_auto(problem, method: str, linsolve: str, kkt: str):
     """Resolve 'auto' linsolve/kkt to the measured-best configuration.
 
@@ -105,7 +92,7 @@ def resolve_auto(problem, method: str, linsolve: str, kkt: str):
     * ``kkt='auto'`` → 'condensed' when m ≫ n (m ≥ 4(n+p) and the full KKT
       is big enough for the O(N³) factorization to matter): eliminating the
       residual block turns an (n+m+p)³ factorization into (n+p)³ plus one
-      MXU matmul — the measured hot path for the large dense regime.
+      matmul — the measured hot path for the large dense regime.
     * ``linsolve='auto'`` on a condensed Gauss–Newton/LM system → 'chol'
       (two-level Cholesky; SPD by construction), else 'ldlt' with the
       in-loop exact-inertia eigh retry (``robust_fallback``) — the
@@ -232,7 +219,6 @@ class CaNNOLeSSolver:
         robust_fallback: bool = False,
         descent_rescue: bool = True,
         matmul_precision: Optional[str] = None,
-        pallas_chol_min: Optional[int] = None,
         dtype=None,
     ):
         self.method = _check_available_method(method)
@@ -274,15 +260,6 @@ class CaNNOLeSSolver:
         if kkt == "condensed":
             N = problem.nvar + problem.ncon
         self.quality_gate = (N >= 16) if quality_gate is None else bool(quality_gate)
-        # linsolve='chol' n-size threshold above which the owned Pallas
-        # blocked-Cholesky kernel (ops/pallas_chol.py) replaces XLA's
-        # cholesky.  Default OFF: device-side measurement on v5e (RESULTS.md
-        # "owned-kernel study") shows XLA's cholesky is 3-8x faster at
-        # N = 512-2048 inside a compiled program, so wiring the owned kernel
-        # as default would be a measured regression; it remains the seam for
-        # the MA57-analog pivot-signal semantics and for hardware where the
-        # balance differs (set pallas_chol_min to enable).
-        self.pallas_chol_min = (1 << 31) if pallas_chol_min is None else int(pallas_chol_min)
         # in-loop exact-inertia retry at rho-ladder exhaustion (the
         # two-backend seam of the reference run per-iteration); meaningless
         # for the already-exact eigh backend
@@ -326,36 +303,31 @@ class CaNNOLeSSolver:
                 f"problem '{problem.name}' provides no residual Hessian; "
                 "use method='gauss_newton' (reference :Newton_noFHess)"
             )
-        # Mixed-precision seam (the TPU-native bfloat16 mode).  On TPU an f32
-        # matmul with Precision.DEFAULT already runs bf16 multiplies with f32
-        # accumulation on the MXU; the numerically critical contractions
-        # (J'J condensation, quality-gate / refinement residuals) explicitly
-        # pin precision='highest' and are unaffected by this default.  So:
-        #   None        -> mixed mode (default): bf16 MXU passes everywhere
-        #                  it is safe, f32-emulation where it matters;
-        #   'highest'   -> force full f32-precision arithmetic in every
-        #                  matmul (parity/debug; matches CPU bitwise-ish);
-        #   'bfloat16'  -> name the mixed mode explicitly (same as None on
-        #                  current JAX, kept as a stable knob).
-        # Accuracy envelope: benchmarks/bf16_envelope.py + RESULTS.md.
+        # Matmul-precision seam.  ``matmul_precision=None`` leaves JAX's
+        # default, which on an H100 runs float32 matmuls in TF32 (10-bit
+        # mantissa; 'high' is the same there, only 'highest' is full f32);
+        # the numerically critical contractions (JᵀJ condensation below,
+        # quality-gate / refinement residuals) pin precision='highest'.
+        #   None        -> default: TF32 where XLA picks it, f32 where it matters;
+        #   'highest'   -> full f32 arithmetic in every matmul (parity/debug);
+        #   'bfloat16' / 'tensorfloat32' -> commit every matmul, including the
+        #                  condensation, to that arithmetic.
+        # Accuracy envelope: benchmarks/bf16_envelope.py.
         if matmul_precision not in (None, "highest", "float32", "bfloat16", "tensorfloat32"):
             raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
         self.matmul_precision = matmul_precision
-        # The J'J condensation is the conditioning-critical contraction
-        # (measured round 3: 65/256 batched BA scenes solved with 1-pass
-        # bf16 condensation + gate off, vs 256/256 pinned).  Mixed (None)
-        # mode pins it to 'high' (3-pass bf16 emulation, ~f32-grade):
-        # measured round 4 on the 8192×1024 rung, 'high' vs 'highest' is
-        # 2.73 vs 3.30 ms/solve with the SAME iterate count and final error
-        # (4.53e-5 vs 4.54e-5), and the BA rung stays 256/256 at 'high'
-        # (and even at 'default' now that the quality gate is on at this N).
+        # The JᵀJ condensation is the conditioning-critical contraction.
+        # Default (None) mode pins it to 'highest': on an H100 (400 W limit),
+        # 256 batched BA scenes at N = 73 solved 256/256 either way, but the
+        # worst scene landed 2.75 from its float64 KKT point with the TF32
+        # condensation against 1.08 pinned (CPU float32: 0.45), at no
+        # measurable time cost (12.98 vs 12.65 ms per batch; the 8192×1024
+        # fit 21.4 vs 19.2 ms) — benchmarks/ldlt_kernel_study.py --e2e.
         # An EXPLICIT matmul_precision is a full commitment: the
-        # condensation follows it (measured: 'bfloat16' commit 3.2 → 2.3
-        # ms/solve, same iterations, err 4.5e-5 → 7.9e-5).  The quality-gate
-        # residual is separate and ALWAYS measured at 'highest' (see
-        # _gate_eps above).
+        # condensation follows it.  The quality-gate residual is separate and
+        # ALWAYS measured at 'highest' (see _gate_eps below).
         self._critical_precision = (
-            "high" if matmul_precision is None else matmul_precision
+            "highest" if matmul_precision is None else matmul_precision
         )
         # The quality gate must stay honest in commit mode: the gate residual
         # matmul is O(N²) (never throughput-critical) so it is ALWAYS measured
@@ -413,19 +385,36 @@ class CaNNOLeSSolver:
 
         return jax.jit(wrapped, **jit_kw)
 
-    def batch_runner(self, data_batched: bool, batch_shape=None):
+    def batch_runner(self, data_batched: bool, batch_shape=None, mesh=None):
         """Cached jitted batched runner: ``run(x0s, lam0s, cfg, datas)``.
 
         ``batch_shape = (B, chunk)`` enables sequential-chunk execution
         (straggler control + much smaller compile); None = one flat vmap.
+        ``mesh``: a 1-D device mesh; the flat vmap then runs under
+        ``shard_map`` over its axis, each device solving its own lanes.
         Cached per signature so repeated vsolve calls never re-trace."""
-        key = (bool(data_batched), batch_shape)
+        key = (bool(data_batched), batch_shape, mesh)
         if key in self._batch_runners:
             return self._batch_runners[key]
         vrun = jax.vmap(
             self._run_compiled, in_axes=(0, 0, None, 0 if data_batched else None)
         )
-        if batch_shape is None:
+        if mesh is not None:
+            if batch_shape is not None:
+                raise ValueError("chunked batch runs take no mesh")
+            from jax.sharding import PartitionSpec as P
+
+            lanes = P(mesh.axis_names[0])
+            sharded = jax.shard_map(
+                vrun,
+                mesh=mesh,
+                in_specs=(lanes, lanes, P(), lanes if data_batched else P()),
+                out_specs=lanes,
+                # the Pallas call's outputs carry no varying-axes type
+                check_vma=False,
+            )
+            run = self._jit(sharded)
+        elif batch_shape is None:
             run = self._jit(vrun)
         else:
             B, chunk = batch_shape
@@ -479,7 +468,6 @@ class CaNNOLeSSolver:
             robust_fallback=self.robust_fallback,
             descent_rescue=self.descent_rescue,
             matmul_precision=self.matmul_precision,
-            pallas_chol_min=self.pallas_chol_min,
             dtype=self.dtype,
         )
 
@@ -520,8 +508,7 @@ class CaNNOLeSSolver:
         dtype = H.dtype
         # Block-concatenate instead of .at[].set scatters: under vmap the
         # scatter chain lowers to serialized full-array updates that XLA
-        # cannot fuse — measured 0.39 ms vs 0.02 ms per batched assembly at
-        # the BA-rung shapes (benchmarks/profile_ba_rung.py, round 5).
+        # cannot fuse.
         Im = -jnp.eye(m, dtype=dtype)
         if p == 0:
             return jnp.concatenate(
@@ -553,14 +540,13 @@ class CaNNOLeSSolver:
         with identical inertia decisions (In(W) = In(K) + (0, m, 0) by the
         Schur complement on the negative-definite -I block).  O((n+p)³)
         factorization instead of O((n+m+p)³) — the BASELINE north-star form,
-        and the hot path for m ≫ n.  JᵀJ is one MXU matmul."""
+        and the hot path for m ≫ n.  JᵀJ is one matmul."""
         pb = self.problem
         p = pb.ncon
         dtype = H.dtype
-        # critical precision (default 'highest'): TPU f32 matmuls default to
-        # bf16 multiplies, which destroys the conditioning of J'J (measured:
-        # 65/256 batched BA scenes solved vs 256/256 with full-f32
-        # arithmetic); an explicit matmul_precision overrides (see __init__)
+        # critical precision (default 'highest'; an H100 runs default-
+        # precision f32 matmuls in TF32, which loosens J'J's conditioning);
+        # an explicit matmul_precision overrides (see __init__)
         M = H + jnp.matmul(JxT, JxT.T, precision=self._critical_precision)
         if p == 0:
             return M
@@ -623,36 +609,18 @@ class CaNNOLeSSolver:
             # K = [M Jcᵀ; Jc -δI]: In(K) = (n, p, 0) ⟺ M ≻ 0 (the Schur
             # block -δI - Jc M⁻¹Jcᵀ is then automatically negative
             # definite), so success == Cholesky(M) finite with pivots
-            # above eig_tol — the same inertia criterion.  Two seams for
-            # the n×n factor: XLA's blocked Cholesky below
-            # ``pallas_chol_min``, and the owned Pallas blocked kernel
-            # above it (ops/pallas_chol.py: diagonal blocks factored +
-            # inverted in VMEM, so every triangular solve becomes an MXU
-            # matmul — XLA's triangular_solve is row-recurrence bound at
-            # large N).
+            # above eig_tol — the same inertia criterion.  The n×n factor
+            # is XLA's Cholesky (cuSOLVER on the GPU).
             from jax.scipy.linalg import cho_solve, solve_triangular as _st
 
             p = self.problem.ncon
             M = W[:n, :n]
             bx = rhs[:n]
-            use_pallas = n >= self.pallas_chol_min
-            if use_pallas:
-                from ..ops.pallas_chol import (
-                    block_cho_solve,
-                    block_forward_solve,
-                    pallas_cholesky,
-                )
-
-                facM = pallas_cholesky(M, pr.eig_tol, nb=256)
-                okM = facM.ok
-                M_solve = lambda b: block_cho_solve(facM, b)  # noqa: E731
-                M_fwd = lambda b: block_forward_solve(facM, b)  # noqa: E731
-            else:
-                Lm = jnp.linalg.cholesky(M)
-                dlm = jnp.diagonal(Lm)
-                okM = jnp.all(jnp.isfinite(Lm)) & jnp.all(dlm * dlm > pr.eig_tol)
-                M_solve = lambda b: cho_solve((Lm, True), b)  # noqa: E731
-                M_fwd = lambda b: _st(Lm, b, lower=True)  # noqa: E731
+            Lm = jnp.linalg.cholesky(M)
+            dlm = jnp.diagonal(Lm)
+            okM = jnp.all(jnp.isfinite(Lm)) & jnp.all(dlm * dlm > pr.eig_tol)
+            M_solve = lambda b: cho_solve((Lm, True), b)  # noqa: E731
+            M_fwd = lambda b: _st(Lm, b, lower=True)  # noqa: E731
             if p == 0:
                 sol = M_solve(bx)
                 return sol, okM & jnp.all(jnp.isfinite(sol))
@@ -1513,7 +1481,7 @@ def cannoles(
     problem.validate_for_solve()
     # linsolve='auto': the two-backend seam of the reference (MA57 default
     # with an LDLFactorizations fallback, CaNNOLeS.jl:317-332) run in the
-    # TPU-economical direction — the fast unpivoted LDLᵀ on every attempt,
+    # accelerator-economical direction — the fast unpivoted LDLᵀ on every attempt,
     # and *per KKT system* an exact-inertia eigh retry ladder entered only at
     # rho-ladder exhaustion (the MA57-robustness analog).  One solver
     # instance, one compiled program, no discarded iterates — unlike the

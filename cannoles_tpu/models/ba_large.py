@@ -4,7 +4,7 @@ The production-scale BA workload (100 cameras x 10,000 landmarks -> 30,600
 parameters, 2,000,000 reprojection residuals).  The dense solver cannot touch
 this (the materialized Jacobian alone is m*n = 245 GB); the capability analog
 in the reference is sparse-J handling (/root/reference/src/CaNNOLeS.jl:259-315).
-The TPU-native answers are:
+The answers here are:
 
 * :class:`~cannoles_tpu.core.ba.SchurBASolver` — direct camera-Schur
   elimination on the structured Gauss-Newton system (core/ba.py);
@@ -13,7 +13,7 @@ The TPU-native answers are:
 Layout: ``x = [cams (C, 6).ravel(); pts (P, 3).ravel()]``, pose = (angle-axis
 w, translation t), pinhole projection u = f*(R(X - t))_{xy}/z in normalized
 image coordinates.  Full (C, P) visibility keeps every per-observation tensor
-dense and batched — the TPU restatement of BA sparsity (the block *structure*
+dense and batched — the static-shape restatement of BA sparsity (the block *structure*
 is what's exploited, not COO indices).  Gauge freedom is removed by equality
 constraints on the camera block only: pose 0 pinned (6) + squared baseline
 fixed (1), as in :func:`cannoles_tpu.models.families.bundle_adjustment`.
@@ -65,17 +65,17 @@ def large_bundle_adjustment(
 
     ``data = {"obs": (C, P, 2), "pose0": (6,), "base2": (1,)}``; residual is
     the raveled (C, P, 2) reprojection error — evaluated as one batched
-    vmap-of-vmap of :func:`project_point` (pure MXU/VPU work, no Python
+    vmap-of-vmap of :func:`project_point` (dense batched work, no Python
     loops), so jvp/vjp through it stay cheap for the matrix-free surface.
 
     ``visibility``: fraction of (camera, landmark) pairs observed (default
     1.0 = full grid).  Below 1.0 a Bernoulli mask ``data["vis"]`` (C, P) is
     drawn — with every landmark forced visible in ≥ 2 cameras so the scene
     stays well-posed — and the residual is ``vis ⊙ (proj − obs)``.  This is
-    the TPU-native restatement of BAL-style sparse scenes (the reference
+    the static-shape restatement of BAL-style sparse scenes (the reference
     handles arbitrary sparsity via COO storage, CaNNOLeS.jl:259-315; here
     the static-shape grid is masked, so XLA keeps every contraction dense
-    and MXU-tiled while the *algebra* — including the SchurBASolver's
+    and batched while the *algebra* — including the SchurBASolver's
     analytic U/V/W blocks — sees the true sparse Jacobian).
 
     ``gauge``: how the 7-dof similarity gauge freedom is removed —
@@ -108,7 +108,7 @@ def large_bundle_adjustment(
         return jax.vmap(lambda c: jax.vmap(lambda p: project_point(c, p))(pts))(cams)
 
     # observations at the widest available precision (f64 when x64 is on,
-    # f32 on TPU — the residual then carries ~1e-7 synthesis rounding)
+    # f32 otherwise — the residual then carries ~1e-7 synthesis rounding)
     obs = np.asarray(_proj_grid(jnp.asarray(cams_true), jnp.asarray(X_true)))
     obs = obs + noise * rng.normal(size=obs.shape)
 

@@ -1,6 +1,6 @@
 """Parameterized large-scale problem families (BASELINE configs 4/5).
 
-These are the production-shaped workloads the TPU build exists for — no
+These are the production-shaped workloads the accelerator build exists for — no
 reference analog (the reference ships only small test fixtures):
 
 * :func:`curve_fit_family` — m-observation exponential curve fits; the data
@@ -100,7 +100,7 @@ def bundle_adjustment(
         return uv.reshape(-1)  # (2 K P,)
 
     # synthesize observations in pure numpy: jnp ops here would issue
-    # hundreds of tiny device dispatches per scene (painful over a TPU link)
+    # hundreds of tiny device dispatches per scene
     def _np_project(cams, pts):
         uv = np.empty((n_cams, n_pts, 2))
         for i in range(n_cams):

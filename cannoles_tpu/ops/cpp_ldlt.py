@@ -3,8 +3,8 @@
 The shared library (``native/ldlt.cpp``) is compiled on demand with g++ and
 cached next to the source.  Exposed to the jitted solver through
 ``jax.pure_callback`` (a host round-trip — this is the debugging / CPU
-fallback seam, the analog of the reference's MA57 escape hatch, not the TPU
-hot path)."""
+fallback seam, the analog of the reference's MA57 escape hatch, not the
+device hot path)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Dense blocked LDLᵀ factorization with inertia, jit/vmap-native.
 
-TPU-native replacement for the reference's sparse symmetric-indefinite
+Dense replacement for the reference's sparse symmetric-indefinite
 factorizations (HSL MA57 and LDLFactorizations.jl,
 ``/root/reference/src/solver_types.jl``).  Design notes:
 
@@ -22,7 +22,7 @@ factorizations (HSL MA57 and LDLFactorizations.jl,
 * The factorization is *blocked*: panels of ``nb`` columns are eliminated with
   a fori_loop of skinny rank-1 updates (VPU work), and the trailing submatrix
   is updated with one matmul per panel — the O(N³) bulk — which XLA maps onto
-  the MXU.  Everything vmaps, so a (B, N, N) batch of KKT systems factorizes as
+  a dense matmul kernel.  Everything vmaps, so a (B, N, N) batch of KKT systems factorizes as
   batched matmuls.
 
 * A dense symmetric-eigendecomposition backend (``eigh``) provides exact
@@ -67,7 +67,7 @@ def _panel_factor(P: jax.Array, eig_tol: float) -> Tuple[jax.Array, jax.Array]:
     L (R, nb) and the nb raw pivots.
     """
     R, nb = P.shape
-    rows = jnp.arange(R)[:, None]  # (R,1) — 2D iota, TPU-safe
+    rows = jnp.arange(R)[:, None]  # (R,1)
     cols = jnp.arange(nb)[None, :]  # (1,nb)
     rows1 = rows[:, 0]
     cols1 = cols[0, :]
@@ -97,7 +97,7 @@ def _ldlt_factor_looped(A: jax.Array, eig_tol: float, nb: int) -> Factorization:
     over uniform nb-wide panels (N padded to a multiple of nb), with the
     working matrix held in place (strict L below the diagonal, pivots on the
     diagonal).  Same pivot-skip semantics as the static-loop version; the
-    trailing update is one masked (N, nb)x(nb, N) matmul per panel (MXU).
+    trailing update is one masked (N, nb)x(nb, N) matmul per panel.
 
     The static-loop variant unrolls O(N/nb) panels into the graph — at
     N ≈ 1000 that cost ~5 min of XLA compile; this version's graph is one
@@ -190,12 +190,13 @@ def ldlt_factor(A: jax.Array, eig_tol: float, nb: int = 32) -> Factorization:
 def ldlt_solve(fac: Factorization, rhs: jax.Array, eig_tol: float) -> jax.Array:
     """Solve A x = rhs given A = L D Lᵀ (only valid when inertia succeeded).
 
-    In float32 one step of iterative refinement is applied: TPU's blocked
-    ``triangular_solve`` trades accuracy for speed in low precision (measured
-    ~100× worse residuals than exact substitution at N ≈ 70, enough to flip
-    downstream inertia/convergence decisions); the refinement recovers it for
-    two extra triangular solves.  float64 is left untouched so CPU parity
-    trajectories stay bit-identical with the C++ backend."""
+    In float32 one step of iterative refinement is applied: a blocked
+    ``triangular_solve`` may trade accuracy for speed in low precision (an
+    earlier accelerator backend measured ~100× worse residuals than exact
+    substitution at N ≈ 70, enough to flip downstream inertia/convergence
+    decisions); the refinement recovers it for two extra triangular solves.
+    float64 is left untouched so CPU parity trajectories stay bit-identical
+    with the C++ backend."""
     L, d = fac
     ok = jnp.abs(d) > eig_tol
     dinv = jnp.where(ok, 1.0 / jnp.where(ok, d, 1.0), 0.0)

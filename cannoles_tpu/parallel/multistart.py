@@ -4,7 +4,7 @@ The reference is a serial solver — one start, one first-order point, and on
 nonconvex batteries (Freudenstein–Roth, Wood, penalty, ...) that point is
 often a local minimum.  Here a single compiled vmapped solve sweeps hundreds
 of perturbed starts in one shot and returns the best feasible first-order
-point — the TPU-native answer to "the reference got stuck".
+point — the batched answer to "the reference got stuck".
 """
 
 from __future__ import annotations

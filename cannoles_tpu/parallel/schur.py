@@ -1,7 +1,7 @@
 """Row-block model parallelism for one large NLS problem (BASELINE config 4).
 
 The reference handles large residual counts through *sparsity* of J and a
-sparse LDLᵀ (SURVEY.md §5 "long-context analog").  The TPU-native answer is
+sparse LDLᵀ (SURVEY.md §5 "long-context analog").  The answer here is
 **row-block sharding + Schur reduction**:
 
 * the residual dimension m is laid out over a device mesh axis ``'rows'``

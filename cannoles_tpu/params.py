@@ -1,18 +1,18 @@
 """Algorithm hyper-parameters, precision-derived.
 
-TPU-native restatement of the reference parameter pack
+Restatement of the reference parameter pack
 (``/root/reference/src/CaNNOLeS.jl:36-87``, ``ParamCaNNOLeS``): every constant
 is derived from the machine epsilon of the working dtype so that the same
-algorithm runs in float64 (parity runs, CPU), float32 (TPU throughput) and
+algorithm runs in float64 (parity runs, CPU), float32 (GPU throughput) and
 float16 (reference Float16 analog, tests/test_precision_trajectory.py).
 
 bfloat16 note: bf16 as a *solve dtype* is deliberately not offered as a
 supported mode — its 8-bit mantissa makes the eps-derived tolerances
-(eps^0.5 ≈ 0.09) accept meaningless points.  The TPU-native bf16 story is
-**mixed precision**: f32 state/scalars with bf16 MXU multiply passes in the
-non-critical matmuls — which is the solver's default on TPU, controlled
-explicitly via ``CaNNOLeSSolver(matmul_precision=...)``; accuracy envelope
-measured in benchmarks/bf16_envelope.py (RESULTS.md).
+(eps^0.5 ≈ 0.09) accept meaningless points.  Reduced precision enters only
+through matmuls: f32 state/scalars, with the non-critical matmuls at JAX's
+default precision (TF32 on an H100) or committed to bf16/TF32 explicitly via
+``CaNNOLeSSolver(matmul_precision=...)``; accuracy envelope measured by
+benchmarks/bf16_envelope.py.
 
 All fields are *static* Python floats: they are fixed once the dtype is chosen,
 so they embed as compile-time constants inside jitted solver code (no tracing

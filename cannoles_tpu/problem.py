@@ -1,6 +1,6 @@
 """Problem protocol: equality-constrained nonlinear least squares.
 
-TPU-native replacement for the NLPModels.jl API consumed by the reference
+Replacement for the NLPModels.jl API consumed by the reference
 (``/root/reference/src/CaNNOLeS.jl:259-291, 467-498, 715-719, 952-976``):
 instead of in-place callbacks + COO sparsity structures, the user supplies two
 pure functions
@@ -16,15 +16,15 @@ and every derivative the solver needs is obtained by JAX transforms:
                                                           NLPModels hess_coord! with
                                                           obj_weight = 0)
 
-Sparsity is deliberately dropped: on TPU the problems in the vmapped batch
-regime are small-dense (MXU-friendly), and the large regime is handled by
+Sparsity is deliberately dropped: the problems in the vmapped batch
+regime are small-dense, and the large regime is handled by
 row-block sharding + Schur reduction (see ``cannoles_tpu.parallel``), not by a
 sparse factorization.
 
 The optional ``data`` pytree parameterizes a problem *family*: a single
 compiled solver can then be vmapped/sharded over thousands of instances that
 share structure but differ in data (initial points, observations, ...), which
-is the instance-batch parallelism axis of the TPU build.
+is the instance-batch parallelism axis of this build.
 """
 
 from __future__ import annotations
@@ -231,7 +231,7 @@ class NLSProblem:
     # ---- matrix-free products (NLPModels jprod/jtprod/hprod parity) ----
     # The reference's hand-coded fixture (test/mgh01con.jl:23-283) defines the
     # full matrix-free surface: jprod_residual!/jtprod_residual!,
-    # hprod_residual!, jprod!/jtprod!, hprod!.  On TPU these are one
+    # hprod_residual!, jprod!/jtprod!, hprod!.  Here these are one
     # jvp/vjp/ nested-jvp each — no materialized Jacobian, O(nequ)/O(nvar)
     # memory — and are what the large-m matrix-free paths (CGLS, Schur
     # matvecs) consume.

@@ -7,7 +7,7 @@ The reference's only observability is its log table and eval counters
   factorization / full outer step) with ``block_until_ready`` fencing;
 * counters (nfact, nlinsolve, nbk, evals) already ride the state pytree, so
   they survive vmap/while_loop and are free to read;
-* :func:`trace` wraps ``jax.profiler.trace`` for XLA/TPU timeline captures.
+* :func:`trace` wraps ``jax.profiler.trace`` for XLA device timeline captures.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Basics: define problems, solve, inspect results.
 
-Run anywhere:  python examples/01_basics.py  (add --cpu off-TPU hosts)
+Run anywhere:  python examples/01_basics.py  (add --cpu to stay on the CPU)
 """
 
 import pathlib

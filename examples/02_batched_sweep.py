@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Batched instance sweep + multistart (the TPU regime).
+"""Batched instance sweep + multistart (the accelerator regime).
 
 python examples/02_batched_sweep.py [--cpu]
 """

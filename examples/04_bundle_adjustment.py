@@ -66,13 +66,12 @@ print(f"matfree: {st2.status} in {st2.iter} iters, obj {st2.objective:.2e}")
 #    machinery).  The round-4 recipe: LM damping tames the transient along
 #    the near-gauge null space, and the per-outer CGLS multiplier refit
 #    replaces the slow first-order dual walk — first_order in a handful of
-#    iterations where the plain configuration needs hundreds
-#    (benchmarks/RESULTS.md, gauge study).
+#    iterations where the plain configuration needs hundreds.
 # ----------------------------------------------------------------------
 pb3, xt3 = large_bundle_adjustment(C, P, gauge="constraints", dtype=jnp.float32)
 # small scenes have a SMALLER initial dual, so the rtol-derived target is
 # tighter in absolute terms and f32 needs more iterations than the
-# production scales (100c/10k converges in 7; this 10c/500p needs ~90)
+# production scales (this 10c/500p needs ~90)
 st3 = SchurBASolver(pb3, C, P, method="lm", multiplier_refit=True).solve(
     atol=0.0, rtol=1e-5, max_iter=120
 )
@@ -97,9 +96,8 @@ print(f"matfree constrained: {st4.status} in {st4.iter} iters")
 #    big), so polish by RESUMING with an absolute target — passing explicit
 #    tolerances together with resume_from re-targets the run from the
 #    current iterate.  Past the LM-tamed transient, plain Gauss-Newton
-#    drives the objective to the f32 floor in a few more iterations (on the
-#    100c/10k production scene: objective 2.1e-2 -> 7.9e-10, recovery
-#    3.1e-2 -> 8.4e-5; benchmarks/results_ba_large.json).
+#    drives the objective to the f32 floor in a few more iterations
+#    (benchmarks/bench_ba_large.py runs the same recipe at 100c/10k).
 # ----------------------------------------------------------------------
 gn3 = MatrixFreeSolver(
     pb3, method="gauss_newton", multiplier_refit=True,

@@ -1,6 +1,6 @@
 // Host-side unpivoted LDL^T with inertia — the native fallback backend.
 //
-// This is the TPU build's analog of the reference's native linear-solve layer
+// This is this build's analog of the reference's native linear-solve layer
 // (HSL MA57 Fortran behind /root/reference/src/solver_types.jl:17-43): a
 // C++ factorization the Python side can call when it wants a host-resident
 // solve (debugging, cross-checking the on-device kernels, or CPU-only

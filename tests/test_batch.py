@@ -1,4 +1,4 @@
-"""Batched vmapped solves + mesh sharding (BASELINE configs 3/5; new TPU
+"""Batched vmapped solves + mesh sharding (BASELINE configs 3/5; new
 capability, no reference analog — SURVEY.md §2.3)."""
 
 import jax

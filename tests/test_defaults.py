@@ -13,7 +13,7 @@ import numpy as np
 import cannoles_tpu.parallel.batch as batch_mod
 from cannoles_tpu import CaNNOLeSSolver, nls_problem
 from cannoles_tpu.core.solver import resolve_auto
-from cannoles_tpu.ops.pallas_ldlt import PALLAS_MAX_N
+from cannoles_tpu.ops.pallas_ldlt import KERNEL_MAX_N
 from cannoles_tpu.parallel.batch import vsolve
 
 
@@ -79,7 +79,7 @@ def test_vsolve_default_beyond_pallas_cap_falls_back(monkeypatch):
     def recording(problem, **kw):
         built.update(kw)
 
-        class _Stub:  # don't actually compile a (PALLAS_MAX_N+)² solver
+        class _Stub:  # don't actually compile a (KERNEL_MAX_N+)² solver
             dtype = jnp.float64
 
             def make_config(self, **kkw):
@@ -91,7 +91,7 @@ def test_vsolve_default_beyond_pallas_cap_falls_back(monkeypatch):
         pass
 
     monkeypatch.setattr(batch_mod, "CaNNOLeSSolver", recording)
-    n = PALLAS_MAX_N + 8
+    n = KERNEL_MAX_N + 8
     pb = nls_problem(lambda x: x - 1.0, jnp.zeros(n), n)
     try:
         vsolve(pb, jnp.zeros((2, n)))

@@ -33,10 +33,10 @@ def test_multiprecision(dtype, linsolve):
 
 @pytest.mark.parametrize("mp", ["highest", "bfloat16"])
 def test_bf16_mixed_precision_mode(mp):
-    """The supported bf16 story is mixed precision: f32 state with bf16 MXU
+    """The supported bf16 story is mixed precision: f32 state with bf16
     passes on non-critical matmuls (matmul_precision knob; no-op arithmetic
-    on CPU but the full trace-time plumbing is exercised).  Envelope on real
-    TPU: benchmarks/bf16_envelope.py + RESULTS.md."""
+    on CPU but the full trace-time plumbing is exercised).  Envelope on a
+    GPU: benchmarks/bf16_envelope.py."""
     x0 = jnp.array([-1.2, 1.0], dtype=jnp.float32)
     nls = nls_problem(F_Rosen, x0, 2, c_linear, [0.0], [0.0])
     solver = CaNNOLeSSolver(nls, dtype=jnp.float32, matmul_precision=mp)

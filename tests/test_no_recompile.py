@@ -1,4 +1,4 @@
-"""No-recompilation test — the TPU analog of the reference's ≤96-bytes
+"""No-recompilation test — the compiled-program analog of the reference's ≤96-bytes
 allocation regression (test/runtests.jl:28-36, SURVEY.md §4 mapping (b)):
 after the first solve, subsequent solves with new initial points / tolerances
 must hit the jit cache (zero retraces)."""

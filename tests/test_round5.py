@@ -158,51 +158,6 @@ def test_checkpoint_jx_migration(tmp_path):
     assert st.status in ("first_order", "small_residual"), st.status
 
 
-def test_pallas_midsize_compile_gate(monkeypatch):
-    """Round-5 compile-cliff policy (ops/pallas_ldlt.py): at N = 97..160 the
-    unrolled kernel's Mosaic compile costs minutes, so the batched dispatch
-    must warn + fall back to the blocked-jnp path unless the user opts in
-    via CANNOLES_PALLAS_LARGE_N=1."""
-    import warnings as _w
-
-    from cannoles_tpu.ops import pallas_ldlt as pmod
-
-    N, B = 100, 4
-    rng = np.random.default_rng(0)
-    G = rng.normal(size=(B, N, N))
-    W = G @ np.swapaxes(G, -1, -2) + N * np.eye(N)
-    rhs = rng.normal(size=(B, N))
-
-    # no opt-in: warning + correct answer via the fallback path (the kernel
-    # entry is stubbed out so reaching it would produce a wrong answer)
-    monkeypatch.delenv("CANNOLES_PALLAS_LARGE_N", raising=False)
-    monkeypatch.setattr(
-        pmod, "batched_ldlt_solve_pallas",
-        lambda W_, r_, t_: (jnp.full_like(r_, 7.0), jnp.ones_like(r_)),
-    )
-    with pytest.warns(UserWarning, match="Mosaic compile"):
-        x, d = jax.vmap(
-            lambda Wi, ri: pmod.fused_ldlt_solve(Wi, ri, 1e-12, nb=17)
-        )(jnp.asarray(W), jnp.asarray(rhs))
-    assert np.allclose(np.einsum("bij,bj->bi", W, np.asarray(x)), rhs, atol=1e-6)
-
-    # opt-in: the kernel entry IS reached (stub marker comes back), no warning
-    monkeypatch.setenv("CANNOLES_PALLAS_LARGE_N", "1")
-    with _w.catch_warnings():
-        _w.simplefilter("error")
-        x2, _ = jax.vmap(
-            lambda Wi, ri: pmod.fused_ldlt_solve(Wi, ri, 1e-12, nb=19)
-        )(jnp.asarray(W), jnp.asarray(rhs))
-    assert np.all(np.asarray(x2) == 7.0)
-
-    # the vsolve auto policy follows the same gate
-    from cannoles_tpu.core.solver import _pallas_batch_cap
-
-    assert _pallas_batch_cap() == pmod.PALLAS_MAX_N
-    monkeypatch.delenv("CANNOLES_PALLAS_LARGE_N")
-    assert _pallas_batch_cap() == pmod.PALLAS_EAGER_MAX_N
-
-
 def test_descent_rescue_repairs_nondescent_lanes_in_graph():
     """In-graph descent rescue (round 5): an unpivoted f32 LDLᵀ can pass the
     pivot-sign inertia test at ρ=0 yet deliver a non-descent direction

@@ -25,7 +25,8 @@ def test_bench_tiny_config_runs():
     import jax.numpy as jnp
 
     problem = bench.build_problem(jnp.float32)
-    value, summary, dt = bench.run_config(problem, "ldlt", 8, None, jnp.float32, reps=1)
+    value, summary, dt, res = bench.run_config(problem, "ldlt", 8, None, jnp.float32, reps=1)
+    assert res.solution.shape == (8, 2)
     assert value > 0 and dt > 0
     assert summary["solved"] >= 6  # tiny perturbations of a benign family
 
